@@ -1,8 +1,8 @@
-"""annembed_tpu — TPU-native nonlinear dimension reduction.
+"""annembed_tpu — nonlinear dimension reduction on accelerators.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of the
 ``annembed`` Rust crate (t-SNE / LargeVis / UMAP family): approximate
-k-NN graph construction on the MXU, perplexity-calibrated probability
+k-NN graph construction as batched distance matmuls, perplexity-calibrated probability
 graphs, diffusion-maps spectral initialization via randomized SVD,
 cross-entropy negative-sampling embedding optimization, and the
 quality / intrinsic-dimension / hubness estimators.

@@ -1,7 +1,7 @@
 """Fixed-degree kNN graph container and statistics.
 
 Replaces the reference's ``KGraph`` (src/fromhnsw/kgraph.rs:109-120):
-a succinct per-node list of sorted out-edges.  On TPU the natural
+a succinct per-node list of sorted out-edges.  On an accelerator the natural
 representation is a pair of dense arrays ``indices: (n, k) int32`` and
 ``dists: (n, k) float32`` (ascending per row) — every downstream graph
 operation becomes a gather or a segment reduction.

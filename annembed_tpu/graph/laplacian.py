@@ -56,7 +56,7 @@ class GraphLaplacian:
         """Exact SVD below FULL_SVD_SIZE_LIMIT, randomized above
         (reference graphlaplace.rs:127 ``do_svd`` dispatch; the
         randomized path uses rank 20 / 5 iterations, :115 —
-        ``n_iter`` exposes the iteration count as a TPU knob, default
+        ``n_iter`` exposes the iteration count as a knob, default
         = the reference's 5).
 
         With ``mesh`` (a 1-D 'data' jax mesh), the randomized path's

@@ -2,7 +2,7 @@
 
 The reference only checkpoints its HNSW index (HnswIo dump/reload,
 examples/higgs.rs:397-474) to skip the 45-minute ANN build.  The
-TPU-native equivalent persists the (n, k) kNN graph arrays (and
+equivalent here persists the (n, k) kNN graph arrays (and
 optionally the embedding) with np.savez — the graph is the only
 expensive artifact.
 

@@ -26,8 +26,7 @@ def build_kgraph(x, knbn: int, distance: str = "DistL2",
     if n <= params.brute_force_limit:
         idx, dist = knn_graph_brute(x, knbn, distance=distance,
                                     block_rows=params.block_rows,
-                                    dtype=params.dtype,
-                                    topk_recall=params.topk_recall)
+                                    dtype=params.dtype)
     else:
         from .ivf import knn_graph_ivf
         # enlarged build-k: construct and refine at build_k_factor * k,
@@ -41,7 +40,6 @@ def build_kgraph(x, knbn: int, distance: str = "DistL2",
         idx, dist = knn_graph_ivf(x, kb, distance=distance,
                                   nlist=params.nlist, nprobe=params.nprobe,
                                   dtype=params.dtype,
-                                  topk_recall=params.topk_recall,
                                   quantizer=params.quantizer,
                                   layout=params.ivf_layout)
         if params.refine_rounds > 0:
@@ -59,10 +57,13 @@ def sampled_exact_recall(x, g, sample: int = 2000, seed: int = 11,
                          sample_ids=None) -> float:
     """recall@k of the build graph ``g`` vs an exact (chunked brute)
     search, on a row sample — the shared implementation behind
-    bench.py and examples/higgs.py (self column dropped from the k+1
-    search result; a duplicate twin displacing self is handled by the
-    [:k] truncation).  Only the sampled query rows are uploaded; ``x``
-    may be a host numpy array or an on-device array."""
+    bench.py, chip_smoke.py and examples/higgs.py (self column dropped
+    from the k+1 search result; a duplicate twin displacing self is
+    handled by the [:k] truncation).  The exact side runs its f32
+    matmuls at Precision.HIGHEST (no TF32).  Only the sampled query
+    rows are uploaded; ``x`` may be a host numpy array or an on-device
+    array."""
+    import jax
     import numpy as np
     from .brute import knn_search_brute
 
@@ -73,7 +74,8 @@ def sampled_exact_recall(x, g, sample: int = 2000, seed: int = 11,
                                  replace=False)).astype(np.int32)
     else:
         sub = np.asarray(sample_ids, np.int32)
-    ei, _ = knn_search_brute(x[sub], x, k=k + 1)
+    with jax.default_matmul_precision("highest"):
+        ei, _ = knn_search_brute(x[sub], x, k=k + 1)
     ei = np.asarray(ei)
     not_self = ei != sub[:, None]
     exact = np.stack([row[m][:k] for row, m in zip(ei, not_self)])

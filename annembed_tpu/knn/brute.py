@@ -1,4 +1,4 @@
-"""Exact kNN graph by tiled distance panels + top-k on the MXU.
+"""Exact kNN graph by tiled distance panels + top-k.
 
 Replaces the reference's HNSW graph construction
 (hnsw_rs ``parallel_insert`` + src/fromhnsw/kgraph.rs:440
@@ -6,8 +6,8 @@ Replaces the reference's HNSW graph construction
 computation is affordable (e.g. MNIST-70k: a 70k x 70k panelized matmul).
 
 Design: queries are processed in row panels of ``block_rows`` under
-``lax.map`` so at most a (block_rows, n) distance panel is live in HBM;
-XLA tiles the inner matmul onto the MXU.  Self edges are masked by index
+``lax.map`` so at most a (block_rows, n) distance panel is live in
+device memory; XLA hands the inner matmul to its GEMM library.  Self edges are masked by index
 (not by distance, which would break on duplicate points).
 
 Precision: the matmul form ||q||^2 + ||x||^2 - 2 q.x suffers
@@ -53,8 +53,7 @@ def _exact_l2_rerank(q, x, cand_idx, k, self_ids=None, valid_n=None):
 
 
 def _block_topk(q, corpus, x_sq, k: int, kk: int, panel_fn, dtype,
-                rerank: bool, topk_recall: float,
-                self_ids=None, valid_n=None):
+                rerank: bool, self_ids=None, valid_n=None):
     """One query-block panel + candidate top-k + optional exact rerank —
     the shared body of the single-chip graph build (`_knn_impl`), the
     corpus search (`_search_impl`) and the sharded brute build
@@ -66,15 +65,7 @@ def _block_topk(q, corpus, x_sq, k: int, kk: int, panel_fn, dtype,
         dist = jnp.where(col == self_ids[:, None], jnp.inf, dist)
     if valid_n is not None:
         dist = jnp.where(col < valid_n, dist, jnp.inf)
-    if topk_recall > 0.0:
-        # TPU-native partial-reduction top-k (ApproxTopK): much faster
-        # than the sort-based exact lowering; the k+extra oversampling
-        # + exact rerank keeps the final top-k recall well above the
-        # per-candidate recall_target
-        neg_d, idx = jax.lax.approx_max_k(
-            -dist, kk, recall_target=topk_recall, aggregate_to_topk=True)
-    else:
-        neg_d, idx = jax.lax.top_k(-dist, kk)
+    neg_d, idx = jax.lax.top_k(-dist, kk)
     if rerank:
         return _exact_l2_rerank(q, corpus, idx, k, self_ids=self_ids,
                                 valid_n=valid_n)
@@ -82,10 +73,9 @@ def _block_topk(q, corpus, x_sq, k: int, kk: int, panel_fn, dtype,
 
 
 @functools.partial(jax.jit, static_argnames=("k", "distance", "block_rows",
-                                             "dtype_name",
-                                             "topk_recall"))
+                                             "dtype_name"))
 def _knn_impl(x: jnp.ndarray, k: int, distance: str, block_rows: int,
-              dtype_name: str, topk_recall: float = 0.0):
+              dtype_name: str):
     n, d = x.shape
     dtype = jnp.bfloat16 if dtype_name == "bfloat16" else jnp.float32
     panel_fn = get_panel_fn(distance)
@@ -103,7 +93,7 @@ def _knn_impl(x: jnp.ndarray, k: int, distance: str, block_rows: int,
     def one_block(args):
         q, ids = args
         return _block_topk(q, x, x_sq, k, kk, panel_fn, dtype, rerank,
-                           topk_recall, self_ids=ids)
+                           self_ids=ids)
 
     idx, dists = jax.lax.map(one_block, (q_blocks, id_blocks))
     idx = idx.reshape(n_blocks * block_rows, -1)[:n, :k]
@@ -112,28 +102,22 @@ def _knn_impl(x: jnp.ndarray, k: int, distance: str, block_rows: int,
 
 
 def knn_graph_brute(x, k: int, distance: str = "DistL2",
-                    block_rows: int = 1024, dtype: str = "float32",
-                    topk_recall: float = 0.0):
+                    block_rows: int = 1024, dtype: str = "float32"):
     """Exact k nearest neighbours of every row of ``x`` (self excluded).
 
     Returns ``(indices, dists)`` of shape (n, k), distances ascending.
-    ``topk_recall`` > 0 switches candidate selection to the TPU
-    ApproxTopK reduction at that per-candidate recall target (final
-    lists still exact-reranked for DistL2); 0 = exact sort-based top-k.
     """
     n = x.shape[0]
     if k >= n:
         raise ValueError(f"k={k} must be < n={n}")
     block_rows = min(block_rows, max(8, n))
-    return _knn_impl(jnp.asarray(x), k, distance, block_rows, dtype,
-                     topk_recall)
+    return _knn_impl(jnp.asarray(x), k, distance, block_rows, dtype)
 
 
 @functools.partial(jax.jit, static_argnames=("k", "distance", "block_rows",
-                                             "dtype_name",
-                                             "topk_recall"))
+                                             "dtype_name"))
 def _search_impl(queries, corpus, valid_n, k, distance, block_rows,
-                 dtype_name, topk_recall: float = 0.0):
+                 dtype_name):
     """``valid_n`` is a TRACED scalar: the number of real corpus rows.
     The chunked caller pads its last chunk to the fixed chunk width so
     every chunk reuses one compiled program; columns >= valid_n are
@@ -153,7 +137,7 @@ def _search_impl(queries, corpus, valid_n, k, distance, block_rows,
 
     def one_block(q):
         return _block_topk(q, corpus, x_sq, k, kk, panel_fn, dtype,
-                           rerank, topk_recall, valid_n=valid_n)
+                           rerank, valid_n=valid_n)
 
     idx, dists = jax.lax.map(one_block, q_blocks)
     idx = idx.reshape(n_blocks * block_rows, -1)[:nq, :k]
@@ -174,8 +158,7 @@ def _merge_topk_sorted(d_a, i_a, d_b, i_b):
 
 def knn_search_brute(queries, corpus, k: int, distance: str = "DistL2",
                      block_rows: int = 1024, dtype: str = "float32",
-                     corpus_chunk: int = 2_000_000,
-                     topk_recall: float = 0.0):
+                     corpus_chunk: int = 2_000_000):
     """k nearest corpus points for each query (no self-exclusion).
 
     Replaces ``hnsw.search`` (used e.g. by the quality estimator,
@@ -185,12 +168,6 @@ def knn_search_brute(queries, corpus, k: int, distance: str = "DistL2",
     Corpora beyond ``corpus_chunk`` rows are processed in chunks with a
     running top-k merge: one (block_rows, n) panel at 11M rows is a
     45 GB buffer the compiler rightly refuses.
-
-    ``topk_recall`` > 0 selects candidates with the TPU ApproxTopK
-    reduction at that per-candidate recall target (the sort-based
-    exact top-k is ~70% of the panel wall, PERF.md roofline study);
-    DistL2 results are still exact-reranked, so final-list recall
-    stays well above the target.  0 = exact.
     """
     n = corpus.shape[0]
     if k > n:
@@ -209,7 +186,7 @@ def knn_search_brute(queries, corpus, k: int, distance: str = "DistL2",
     corpus = jnp.asarray(corpus)
     if n <= corpus_chunk:
         return _search_impl(queries, corpus, jnp.int32(n), k, distance,
-                            block_rows, dtype, topk_recall)
+                            block_rows, dtype)
     best_d = best_i = None
     for c0 in range(0, n, corpus_chunk):
         c1 = min(c0 + corpus_chunk, n)
@@ -219,7 +196,7 @@ def knn_search_brute(queries, corpus, k: int, distance: str = "DistL2",
             # the compiled program (pad columns are masked by valid_n)
             chunk = jnp.pad(chunk, ((0, corpus_chunk - (c1 - c0)), (0, 0)))
         ci, cd = _search_impl(queries, chunk, jnp.int32(c1 - c0), k,
-                              distance, block_rows, dtype, topk_recall)
+                              distance, block_rows, dtype)
         cd.block_until_ready()       # serialize chunk workspaces
         ci = ci + c0
         if best_d is None:

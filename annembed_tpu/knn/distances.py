@@ -1,4 +1,4 @@
-"""Batched distance panels, MXU-first.
+"""Batched distance panels, matmul-first.
 
 Replaces the SIMD distance kernels of the reference's ``hnsw_rs``
 dependency (reference Cargo.toml:125-126 SIMD features; distances
@@ -6,12 +6,12 @@ DistL1/L2/Cosine/Jeffreys/JensenShannon dispatched in
 src/bin/embed.rs:546-565).
 
 The central object is a *panel*: distances between a block of queries
-``q: (b, d)`` and the full corpus ``x: (m, d)``.  L2 and cosine ride the
-MXU via a single matmul; L1/Jeffreys/JensenShannon are vectorized
-reductions (VPU) computed in corpus tiles to bound memory.
+``q: (b, d)`` and the full corpus ``x: (m, d)``.  L2 and cosine are a
+single matmul; L1/Jeffreys/JensenShannon are elementwise reductions
+computed in corpus tiles to bound memory.
 
 Each metric's elementwise formula lives exactly once, in its
-broadcastable pair function (``_l1_pair`` etc.); the VPU panels are the
+broadcastable pair function (``_l1_pair`` etc.); the elementwise panels are the
 same function tiled over the corpus, so panel construction and
 gather-style joins (IVF local join, NN-descent scoring) cannot drift.
 """
@@ -86,15 +86,16 @@ _PAIRS = {
 # ---------------------------------------------------------------------------
 
 #: below this feature count, f32 panel matmuls run at Precision.HIGHEST.
-#: On TPU the DEFAULT precision executes f32 matmuls as bf16 passes;
-#: for LOW-d clouds (embedded 2-D coordinates above all) the
-#: ||q||^2+||x||^2-2qx cancellation then corrupts near-neighbour
-#: ordering so badly that candidate selection returns a quasi-random
-#: near-ball — measured to deflate the quality metric's no-match count
-#: 4x (PERF.md round-3 "quality radius was precision-inflated").  At
-#: d <= 32 the matmul is a negligible fraction of the panel wall, so
-#: exactness is free; high-d panels keep DEFAULT (the documented
-#: bf16-candidates + exact-f32-rerank tradeoff covers them).
+#: At DEFAULT precision a GPU runs f32 matmuls in TF32 (about three
+#: decimal digits); for LOW-d clouds (embedded 2-D coordinates above
+#: all) the ||q||^2+||x||^2-2qx cancellation then corrupts
+#: near-neighbour ordering so badly that candidate selection returns a
+#: quasi-random near-ball — reduced-precision passes were measured to
+#: deflate the quality metric's no-match count 4x (PERF.md "quality
+#: radius was precision-inflated").  At d <= 32 the matmul is a
+#: negligible fraction of the panel wall, so exactness is free; high-d
+#: panels keep DEFAULT (reduced-precision candidates + the exact f32
+#: rerank cover them).
 _HIGHEST_PRECISION_MAX_D = 32
 
 
@@ -109,7 +110,7 @@ def l2_panel(q: jnp.ndarray, x: jnp.ndarray, x_sqnorm: jnp.ndarray | None = None
     """Euclidean distances ||q_i - x_j|| as a (b, m) panel.
 
     Computed as sqrt(max(||q||^2 + ||x||^2 - 2 q.x, 0)) so the O(b*m*d)
-    work is one MXU matmul.  Matches hnsw_rs ``DistL2`` (true euclidean
+    work is one matmul.  Matches hnsw_rs ``DistL2`` (true euclidean
     norm, not squared).
     """
     qf = q.astype(dtype)

@@ -5,12 +5,12 @@ which reuses HNSW's layer hierarchy: points on layers >= l (a
 geometrically-decaying ~2-4% subsample) form the small graph, and every
 lower point is mapped to its nearest upper point.
 
-TPU-native equivalent: a uniform random subsample of fraction
-``sample_fraction`` plays the role of the upper layers (HNSW layer
-assignment *is* i.i.d. geometric, independent of the data, so a uniform
-sample is distributionally equivalent); the projection becomes one
-batched top-1 search of all points against the sample (MXU panel),
-replacing the per-point layer search of kgproj.rs:195-237.
+Here a uniform random subsample of fraction ``sample_fraction`` plays
+the role of the upper layers (HNSW layer assignment *is* i.i.d.
+geometric, independent of the data, so a uniform sample is
+distributionally equivalent); the projection becomes one batched top-1
+search of all points against the sample, replacing the per-point layer
+search of kgproj.rs:195-237.
 """
 
 from __future__ import annotations
@@ -63,6 +63,22 @@ class KGraphProjection:
                 zip(qs.tolist(), jnp.quantile(self.proj_dist, qs).tolist())}
 
 
+def use_top1_kernel(distance: str) -> bool:
+    """The fused top-1 kernel (ops/top1.py, Pallas through Triton)
+    serves L2 on a GPU; every other case takes the plain XLA search."""
+    return distance == "DistL2" and jax.default_backend() == "gpu"
+
+
+def project_top1(x, xs, distance: str = "DistL2"):
+    """Nearest row of ``xs`` for every row of ``x``:
+    (idx (n,) int32, dist (n,))."""
+    if use_top1_kernel(distance):
+        from ..ops.top1 import top1_l2
+        return top1_l2(x, xs)
+    idx1, dist1 = knn_search_brute(x, xs, k=1, distance=distance)
+    return idx1[:, 0], dist1[:, 0]
+
+
 def build_projection(x, knbn: int, sample_fraction: float = 0.05,
                      distance: str = "DistL2",
                      params: Optional[KnnParams] = None,
@@ -91,23 +107,7 @@ def build_projection(x, knbn: int, sample_fraction: float = 0.05,
         small = build_kgraph(xs, knbn, distance=distance, params=params)
         large = build_kgraph(x, knbn, distance=distance, params=params)
 
-    # top-1 of every point against the sample set; on TPU the fused
-    # pallas kernel streams corpus tiles without materializing the
-    # (n, m) panel in HBM (ops/top1.py)
-    proj_small_idx = proj_dist = None
-    if distance == "DistL2":
-        try:
-            if jax.default_backend() == "tpu":
-                from ..ops.top1 import top1_l2
-                proj_small_idx, proj_dist = top1_l2(x, xs)
-        except Exception as exc:  # pragma: no cover - backend dependent
-            logger.warning("pallas top1 unavailable (%s); XLA fallback",
-                           exc)
-            proj_small_idx = None
-    if proj_small_idx is None:
-        idx1, dist1 = knn_search_brute(x, xs, k=1, distance=distance)
-        proj_small_idx = idx1[:, 0]
-        proj_dist = dist1[:, 0]
+    proj_small_idx, proj_dist = project_top1(x, xs, distance)
     # sampled points project to themselves at distance 0
     in_sample_pos = jnp.zeros((n,), jnp.int32).at[sample_ids].set(
         jnp.arange(m, dtype=jnp.int32))

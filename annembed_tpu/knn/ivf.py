@@ -1,4 +1,4 @@
-"""IVF (inverted-file) approximate kNN for large n — the TPU-native
+"""IVF (inverted-file) approximate kNN for large n — the accelerator-side
 replacement for HNSW graph construction at Higgs scale (11M points),
 where the exact O(n^2 d) panel is unaffordable
 (reference: hnsw_rs build is 25-45%% of wall-clock, README.md:92,131).
@@ -9,8 +9,8 @@ Strategy (cell-blocked local join):
      size, computed host-side once; pad id = n).
   3. For every cell c: its points are queried against the union of the
      points of the ``nprobe`` cells nearest to centroid c.  All queries
-     of a cell share one (C, nprobe*C) distance matmul — large, batched,
-     MXU-shaped — instead of per-query gathers.
+     of a cell share one (C, nprobe*C) distance matmul — large and
+     batched — instead of per-query gathers.
 
 Recall depends on (nlist, nprobe); defaults give >0.95 recall@10 on
 clustered data (see tests/test_ivf.py), and can be driven to ~1 by
@@ -90,11 +90,8 @@ def _ivf_tables_impl(cells, nlist: int, cap: int, qcap: int,
     dropping any candidates — at 11M points the (cap, nprobe*cap)
     panel with qcap == cap peaked past HBM.
 
-    Keeping this on device matters beyond elegance: reading the cell
-    assignment back to the host (the previous numpy path) is a
-    device->host transfer that permanently degrades every subsequent
-    dispatch on remote-dispatch runtimes (measured 500x on the dense
-    optimizer), and the graph build runs BEFORE the optimizer.
+    Everything stays on device: no cell assignment travels to the
+    host and back.
     """
     n = cells.shape[0]
     counts = jnp.bincount(cells, length=nlist)               # (nlist,)
@@ -154,12 +151,10 @@ def _ivf_rowplan_impl(cells, nlist: int, qcap: int, v_static: int):
 
 
 @functools.partial(jax.jit, static_argnames=("k", "qcap", "cap", "n_real",
-                                             "dtype_name", "distance",
-                                             "topk_recall"))
+                                             "dtype_name", "distance"))
 def _ivf_join_sorted(xs_pad, qstarts, qparents, starts, counts, cell_nbrs,
                      k: int, qcap: int, cap: int, n_real: int,
-                     dtype_name: str, distance: str = "DistL2",
-                     topk_recall: float = 0.0):
+                     dtype_name: str, distance: str = "DistL2"):
     """Cell-sorted local join: gather-free except the tiny per-row
     bookkeeping.  ``xs_pad`` is the corpus REORDERED by cell id (plus
     zero pad rows up to max(n+1, cap, qcap)); queries are one
@@ -204,12 +199,7 @@ def _ivf_join_sorted(xs_pad, qstarts, qparents, starts, counts, cell_nbrs,
                    | (cpos[None, :] == qpos[:, None])
                    | (~qvalid)[:, None])
         dist = jnp.where(invalid, jnp.inf, dist)
-        if topk_recall > 0.0:
-            neg_d, pos = jax.lax.approx_max_k(
-                -dist, k, recall_target=topk_recall,
-                aggregate_to_topk=True)
-        else:
-            neg_d, pos = jax.lax.top_k(-dist, k)
+        neg_d, pos = jax.lax.top_k(-dist, k)
         idx = cpos[pos]                            # (qcap, k) sorted pos
         out_d = -neg_d
         if distance == "DistL2":
@@ -229,18 +219,14 @@ def _ivf_join_sorted(xs_pad, qstarts, qparents, starts, counts, cell_nbrs,
 
 
 @functools.partial(jax.jit, static_argnames=("k", "dtype_name",
-                                             "distance", "topk_recall"))
+                                             "distance"))
 def _ivf_join(x_pad, virt_table, virt_parent, cand_table, cell_nbrs,
-              k: int, dtype_name: str,
-              distance: str = "DistL2", topk_recall: float = 0.0):
+              k: int, dtype_name: str, distance: str = "DistL2"):
     """For each virtual query row: exact kNN of its points within the
     probed cells' candidate lists (probe count = cell_nbrs.shape[1]).
 
     x_pad: (n+1, d) with a zero pad row.  Returns idx/dist
-    (V, qcap, k) aligned with virt_table.  ``topk_recall`` > 0 selects candidates
-    with the TPU ApproxTopK reduction at that recall target (the small
-    per-row recall loss is recovered by the NN-descent refinement that
-    follows the join in the production pipeline).
+    (V, qcap, k) aligned with virt_table.
     """
     from .distances import get_panel_fn
     n = x_pad.shape[0] - 1
@@ -256,12 +242,7 @@ def _ivf_join(x_pad, virt_table, virt_parent, cand_table, cell_nbrs,
         dist = panel_fn(q, xc, dtype=dtype)       # (qcap, nprobe*cap)
         invalid = (cand[None, :] == members[:, None]) | (cand[None, :] >= n)
         dist = jnp.where(invalid, jnp.inf, dist)
-        if topk_recall > 0.0:
-            neg_d, pos = jax.lax.approx_max_k(
-                -dist, k, recall_target=topk_recall,
-                aggregate_to_topk=True)
-        else:
-            neg_d, pos = jax.lax.top_k(-dist, k)
+        neg_d, pos = jax.lax.top_k(-dist, k)
         idx = cand[pos]                           # (qcap, k)
         out_d = -neg_d
         if distance == "DistL2":
@@ -434,7 +415,7 @@ def _quantize_cells(xq, k: int, nlist: int, nprobe: int, quantizer: str,
 def knn_graph_ivf(x, k: int, distance: str = "DistL2", nlist: int = 0,
                   nprobe: int = 32, dtype: str = "float32",
                   kmeans_iter: int = 10, seed: int = 0,
-                  sample_size: int = 500_000, topk_recall: float = 0.0,
+                  sample_size: int = 500_000,
                   quantizer: str = "kmeans", layout: str = "sorted"):
     """Approximate kNN graph via IVF local join.  Returns (idx, dist).
 
@@ -469,8 +450,7 @@ def knn_graph_ivf(x, k: int, distance: str = "DistL2", nlist: int = 0,
 
     if layout == "sorted":
         return _knn_graph_ivf_sorted(x, cells, cell_nbrs, pad_cell, n, d,
-                                     k, nlist, cap, qcap, dtype, distance,
-                                     topk_recall)
+                                     k, nlist, cap, qcap, dtype, distance)
     if layout != "gathered":
         raise ValueError(f"unknown IVF layout {layout!r}")
 
@@ -495,9 +475,7 @@ def knn_graph_ivf(x, k: int, distance: str = "DistL2", nlist: int = 0,
     # v_static = nlist + n // qcap over-allocates by up to ~45% when
     # most cells hold fewer than qcap points (the padded rows would
     # each run a full (qcap, nprobe*cap) panel into the sentinel row).
-    # The one-int readback is safe here: large pipelines have already
-    # entered sync mode (api._ensure_eager_execution) and small ones
-    # pay a single cheap transfer
+    # (one int read back to the host)
     v_total = int(v_used)
     # clamp the memory-heuristic slab to the real row count: otherwise
     # a small v_total is padded up to the full slab and the join runs
@@ -516,7 +494,7 @@ def knn_graph_ivf(x, k: int, distance: str = "DistL2", nlist: int = 0,
                      constant_values=n)
         vp = jnp.pad(virt_parent[s0:s1], (0, pad_r))
         it, dt = _ivf_join(x_pad, vt, vp, cand_table, cell_nbrs, k,
-                           dtype, distance, topk_recall)
+                           dtype, distance)
         members = vt.reshape(-1)
         idx = idx.at[members].set(it.reshape(-1, k), mode="drop")
         dist = dist.at[members].set(dt.reshape(-1, k), mode="drop")
@@ -529,8 +507,7 @@ def knn_graph_ivf(x, k: int, distance: str = "DistL2", nlist: int = 0,
 
 def _knn_graph_ivf_sorted(x, cells, cell_nbrs, pad_cell: bool, n: int,
                           d: int, k: int, nlist: int, cap: int, qcap: int,
-                          dtype: str, distance: str, topk_recall: float,
-                          join_call=None, slab_round: int = 1):
+                          dtype: str, distance: str, join_call=None, slab_round: int = 1):
     """Slab driver for the cell-sorted join layout (see
     ``_ivf_join_sorted``).  Same slab/memory discipline as the gathered
     path: bounded virtual-row slabs, immediate scatter into the (n+1, k)
@@ -557,8 +534,7 @@ def _knn_graph_ivf_sorted(x, cells, cell_nbrs, pad_cell: bool, n: int,
     if join_call is None:
         def join_call(xp, qt, qp, st, ct):
             return _ivf_join_sorted(xp, qt, qp, st, ct, cell_nbrs, k,
-                                    qcap, cap, n, dtype, distance,
-                                    topk_recall)
+                                    qcap, cap, n, dtype, distance)
 
     v_total = int(v_used)                          # documented readback
     nprobe = cell_nbrs.shape[1]

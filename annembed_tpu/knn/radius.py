@@ -4,8 +4,8 @@ The quality estimator's sampled path (estimators/quality.py) needs the
 exact ``radius_k``-th neighbour distance of m sampled nodes against the
 FULL embedded cloud (reference semantics: the radius comes from a real
 search over all points, src/embedder.rs:527-554).  The chunked brute
-search is exact but top-k-sort bound: at 11M x 200k x k=251 it cost
-~40 min — longer than the embed it evaluates (VERDICT r4 item 6).
+search is exact but top-k-sort bound: at 11M x 200k x k=251 it was
+longer than the embed it evaluates.
 
 This module replaces it for d == 2 with a certificate-checked grid
 search that returns IDENTICAL f32 distances:

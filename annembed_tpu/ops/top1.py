@@ -1,14 +1,20 @@
-"""Pallas TPU kernel: fused L2 distance + running top-1.
+"""Fused L2 distance + running top-1: a Pallas kernel lowered through Triton.
 
-Used by the hierarchical projection (every point -> nearest sampled
-point, knn/hierarchy.py; reference kgproj.rs:195-237): a (nq, m) panel
-never hits HBM — corpus tiles stream through VMEM while a running
-(block, 1) min/argmin lives in scratch across the corpus grid
-dimension.  For the Higgs-scale projection (11M x 440k) this saves
-~2 GB of HBM panel traffic per query block.
+Used by the hierarchical projection (every point -> its nearest sampled
+point, knn/hierarchy.py; reference kgproj.rs:195-237).  The plain XLA
+form (``knn_search_brute(k=1)``) writes a (block_rows, m) distance
+panel to device memory and reads it back for ``top_k``; at the Higgs
+projection (11M queries x 440k samples) that panel traffic is ~19 TB.
+Here each program owns ``block_q`` queries, walks the corpus in
+``tile_m``-row tiles inside the block (``lax.fori_loop``, pipelined by
+Triton over ``_NUM_STAGES``) and keeps the running min/argmin in
+registers, so no panel ever leaves the SM.
 
-Grid: (query blocks, corpus tiles), corpus innermost so the scratch
-accumulator carries across tiles of one query block.
+Ranking uses ``||c||^2 - 2 q.c`` (the per-row ``||q||^2`` does not
+change the argmin).  The cross term runs at ``Precision.HIGHEST``,
+which Triton lowers to IEEE float32 FMA (no TF32 rounding).  The
+kernel returns indices only; the wrapper recomputes each chosen
+distance exactly as ``||q - c||`` from the gathered corpus row.
 """
 
 from __future__ import annotations
@@ -18,110 +24,84 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
+
+#: ``pl.dot`` on the Triton route needs every operand dimension >= 16
+#: and power-of-two block shapes, so features pad to at least this.
+_MIN_FEATURES = 16
+
+#: Triton launch parameters: the fastest of the block/warp/stage shapes
+#: timed at 2M x 440k x 28 on an H100 (PERF.md findings).
+_NUM_WARPS = 4
+_NUM_STAGES = 3
 
 
-def _top1_kernel(q_ref, qsq_ref, c_ref, csq_ref, out_d_ref, out_i_ref,
-                 best_d, best_i, *, tile_m: int):
-    j = pl.program_id(1)
-    nj = pl.num_programs(1)
+def _top1_kernel(q_ref, c_ref, csq_ref, idx_ref, *, tile_m: int):
+    q = q_ref[...]                                   # (block_q, dp)
+    n_tiles = c_ref.shape[0] // tile_m
 
-    @pl.when(j == 0)
-    def _():
-        best_d[:] = jnp.full_like(best_d, jnp.inf)
-        best_i[:] = jnp.zeros_like(best_i)
+    def body(j, carry):
+        best, arg = carry
+        rows = pl.ds(j * tile_m, tile_m)
+        c = c_ref[rows, :]                           # (tile_m, dp)
+        score = csq_ref[rows][None, :] - 2.0 * pl.dot(
+            q, c, trans_b=True, precision=jax.lax.Precision.HIGHEST)
+        t_min = jnp.min(score, axis=1)
+        t_arg = jnp.argmin(score, axis=1).astype(jnp.int32) + j * tile_m
+        upd = t_min < best
+        return jnp.where(upd, t_min, best), jnp.where(upd, t_arg, arg)
 
-    q = q_ref[:]                       # (bq, d)
-    c = c_ref[:]                       # (tile_m, d)
-    cross = jnp.dot(q, c.T, preferred_element_type=jnp.float32)
-    d2 = qsq_ref[:] + csq_ref[:].reshape(1, -1) - 2.0 * cross  # (bq, tm)
-    tile_min = jnp.min(d2, axis=1, keepdims=True)              # (bq, 1)
-    tile_arg = jnp.argmin(d2, axis=1).reshape(-1, 1) + j * tile_m
-    upd = tile_min < best_d[:]
-    best_i[:] = jnp.where(upd, tile_arg.astype(jnp.int32), best_i[:])
-    best_d[:] = jnp.where(upd, tile_min, best_d[:])
-
-    @pl.when(j == nj - 1)
-    def _():
-        out_d_ref[:] = jnp.sqrt(jnp.maximum(best_d[:], 0.0))
-        out_i_ref[:] = best_i[:]
+    best0 = jnp.full((q.shape[0],), jnp.inf, jnp.float32)
+    arg0 = jnp.zeros((q.shape[0],), jnp.int32)
+    _, arg = jax.lax.fori_loop(0, n_tiles, body, (best0, arg0))
+    idx_ref[...] = arg
 
 
-def top1_l2(queries, corpus, block_q: int = 512, tile_m: int = 2048,
-            interpret: bool = False, slab_q: int = 2_000_000):
-    """Nearest corpus row for each query: (idx (nq,) int32, dist (nq,)).
-
-    Queries are processed in slabs of at most ``slab_q`` rows: one
-    pallas grid over all 11M Higgs queries is ~4.6M grid steps, which
-    crashed the Mosaic compile; per-slab grids stay well inside what
-    compiles (and the slab boundary also serializes device work)."""
-    queries = jnp.asarray(queries, jnp.float32)
-    nq = queries.shape[0]
-    if nq <= slab_q:
-        return _top1_l2_impl(queries, corpus, block_q=block_q,
-                             tile_m=tile_m, interpret=interpret)
-    idx_parts, dist_parts = [], []
-    for s0 in range(0, nq, slab_q):
-        s1 = min(s0 + slab_q, nq)
-        pad = slab_q - (s1 - s0)
-        qs = jnp.pad(queries[s0:s1], ((0, pad), (0, 0)))
-        si, sd = _top1_l2_impl(qs, corpus, block_q=block_q,
-                               tile_m=tile_m, interpret=interpret)
-        sd.block_until_ready()
-        idx_parts.append(si[:s1 - s0])
-        dist_parts.append(sd[:s1 - s0])
-    return jnp.concatenate(idx_parts), jnp.concatenate(dist_parts)
+def pad_operands(queries, corpus, block_q: int, tile_m: int):
+    """Kernel operands: features zero-padded to a power of two (>= 16),
+    queries to a multiple of ``block_q``, corpus rows to a multiple of
+    ``tile_m``; padded corpus rows get a +inf squared norm so they never
+    win the argmin.  Returns (q_pad, c_pad, csq)."""
+    nq, d = queries.shape
+    m = corpus.shape[0]
+    dp = max(_MIN_FEATURES, pl.next_power_of_2(d))
+    nq_p = -(-nq // block_q) * block_q
+    m_p = -(-m // tile_m) * tile_m
+    qp = jnp.pad(queries, ((0, nq_p - nq), (0, dp - d)))
+    cp = jnp.pad(corpus, ((0, m_p - m), (0, dp - d)))
+    csq = jnp.sum(jnp.square(cp), axis=1)
+    csq = jnp.where(jnp.arange(m_p) < m, csq, jnp.inf)
+    return qp, cp, csq
 
 
 @functools.partial(jax.jit, static_argnames=("block_q", "tile_m",
                                              "interpret"))
-def _top1_l2_impl(queries, corpus, block_q: int = 512, tile_m: int = 2048,
-                  interpret: bool = False):
-    """One-slab pallas dispatch; padded corpus rows are masked by +inf
-    via their squared-norm entries."""
+def top1_l2(queries, corpus, block_q: int = 128, tile_m: int = 64,
+            interpret: bool = False):
+    """Nearest corpus row of each query: (idx (nq,) int32, dist (nq,)).
+
+    ``block_q`` and ``tile_m`` must be powers of two.  ``interpret``
+    runs the kernel in the Pallas interpreter (no GPU needed)."""
     queries = jnp.asarray(queries, jnp.float32)
     corpus = jnp.asarray(corpus, jnp.float32)
-    nq, d = queries.shape
-    m = corpus.shape[0]
-
-    nbq = -(-nq // block_q)
-    nbm = -(-m // tile_m)
-    qp = jnp.pad(queries, ((0, nbq * block_q - nq), (0, 0)))
-    cp = jnp.pad(corpus, ((0, nbm * tile_m - m), (0, 0)))
-    qsq = jnp.sum(jnp.square(qp), axis=1, keepdims=True)       # (nq', 1)
-    csq = jnp.sum(jnp.square(cp), axis=1)
-    # mask padded corpus rows out of the argmin
-    csq = jnp.where(jnp.arange(nbm * tile_m) < m, csq, jnp.inf)
-    csq = csq.reshape(-1, 1)                                    # (m', 1)
-
-    grid = (nbq, nbm)
-    out_d, out_i = pl.pallas_call(
+    nq = queries.shape[0]
+    qp, cp, csq = pad_operands(queries, corpus, block_q, tile_m)
+    m_p, dp = cp.shape
+    idx = pl.pallas_call(
         functools.partial(_top1_kernel, tile_m=tile_m),
-        grid=grid,
+        out_shape=jax.ShapeDtypeStruct((qp.shape[0],), jnp.int32),
+        grid=(qp.shape[0] // block_q,),
         in_specs=[
-            pl.BlockSpec((block_q, d), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_q, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_m, d), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_m, 1), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((block_q, dp), lambda i: (i, 0)),
+            pl.BlockSpec((m_p, dp), lambda i: (0, 0)),
+            pl.BlockSpec((m_p,), lambda i: (0,)),
         ],
-        out_specs=[
-            pl.BlockSpec((block_q, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_q, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nbq * block_q, 1), jnp.float32),
-            jax.ShapeDtypeStruct((nbq * block_q, 1), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((block_q, 1), jnp.float32),
-            pltpu.VMEM((block_q, 1), jnp.int32),
-        ],
+        out_specs=pl.BlockSpec((block_q,), lambda i: (i,)),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=_NUM_WARPS,
+                                                 num_stages=_NUM_STAGES),
         interpret=interpret,
-    )(qp, qsq, cp, csq)
-    return out_i[:nq, 0], out_d[:nq, 0]
+        name="top1_l2",
+    )(qp, cp, csq)[:nq]
+    dist = jnp.sqrt(jnp.sum(jnp.square(queries - corpus[idx]), axis=1))
+    return idx, dist

@@ -150,9 +150,8 @@ def ce_value_dense(y, g: KGraph, probas, scale, b: float = 1.0,
     optimizer; same value as ce_value on the flattened edges).
 
     Row-slabbed under ``lax.map``: the direct form materializes
-    (n, k, d) + several (n, k) temporaries, which at 11M nodes pushed
-    the program past HBM (observed: 16.51G of 15.75G with the rest of
-    the pipeline resident).  Slabbing caps the temporaries at
+    (n, k, d) + several (n, k) temporaries (gigabytes at 11M nodes,
+    on top of the resident pipeline).  Slabbing caps the temporaries at
     ~1/n_chunks with identical output."""
     n, k = g.indices.shape
     emb_scale = embedded_scales_from_initial(scale)
@@ -301,9 +300,8 @@ def _optimize_segment(y0: jnp.ndarray, es: EdgeSet, keys: jnp.ndarray,
     return y
 
 
-#: One device program is capped at this many sequential steps: very long
-#: scans (observed at ~8e4 steps) can trip the TPU runtime watchdog and
-#: crash the worker.
+#: One device program is capped at this many sequential steps (the
+#: scan is split into programs of at most this length).
 MAX_STEPS_PER_PROGRAM = 8192
 
 
@@ -364,8 +362,7 @@ def run_entropy_optimization(y0: jnp.ndarray, es: EdgeSet,
     steps_per_batch = max(1, -(-samples_per_batch // batch_size))
     info = {}
     if compute_ce:
-        # device scalar, NOT float(): a readback here permanently
-        # degrades later dispatches on remote-dispatch runtimes
+        # device scalar, NOT float(): converted at the final sync
         info["initial_ce"] = ce_value(y0, es, b=params.b)
     key = jax.random.PRNGKey(params.seed)
     y = optimize(y0.astype(jnp.float32), es, key,

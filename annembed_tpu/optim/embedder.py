@@ -196,11 +196,8 @@ class Embedder:
                 from .ce import ce_value_dense
                 hub = (hubness_sampling_weights(g) if p.hubness_weighting
                        else None)
-                # CE values stay DEVICE scalars: float() here is a
-                # device->host readback that permanently degrades all
-                # later dispatches on remote-dispatch runtimes
-                # (measured 500x on this optimizer).  Consumers convert
-                # at the pipeline's final sync point.
+                # CE values stay DEVICE scalars; consumers convert at
+                # the pipeline's final sync point.
                 info = {"initial_ce": ce_value_dense(
                     init, g, npar.probas, npar.scale, p.b)}
                 if self.mesh is not None:
@@ -240,7 +237,7 @@ class Embedder:
     def get_embedded(self) -> Optional[jnp.ndarray]:
         return self.embedding
 
-    # Rows are positional (no IndexSet remap needed on the TPU side),
+    # Rows are positional (no IndexSet remap needed here),
     # so reindexed == raw (reference embedder.rs:384-405).
     def get_embedded_reindexed(self) -> Optional[jnp.ndarray]:
         return self.embedding

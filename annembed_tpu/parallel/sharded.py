@@ -1,7 +1,7 @@
 """Multi-device sharding of the embedding pipeline.
 
 The reference is single-node shared-memory (rayon + Hogwild,
-SURVEY.md §2.3); the TPU-native scaling axis is a 1-D ``data`` mesh:
+SURVEY.md §2.3); the scaling axis here is a 1-D ``data`` mesh:
 
   * kNN construction: query rows sharded across devices, the corpus
     replicated (or streamed); each device computes its row panel and
@@ -10,7 +10,7 @@ SURVEY.md §2.3); the TPU-native scaling axis is a 1-D ``data`` mesh:
   * CE optimization: positive edges sharded across devices; the
     (n, dim) embedding is replicated (it is tiny: n x 2..15 floats).
     Each device samples its own mini-batch from its edge shard,
-    computes scatter-add deltas, and a ``psum`` over ICI merges them —
+    computes scatter-add deltas, and a ``psum`` merges them —
     synchronous data-parallel SGD.
   * Laplacian degrees / row sums: segment-sum of the local COO shard
     followed by psum (not yet needed at current sizes).
@@ -153,7 +153,7 @@ def make_sharded_dense_step(mesh: Mesh, b: float = 1.0, n_neg: int = 10):
 
     Each device computes the attraction of its row shard (self moves +
     reverse contributions gathered from the replicated y) and its rows'
-    pool repulsion; the per-device deltas are psum-merged over ICI.
+    pool repulsion; the per-device deltas are psum-merged.
     Inputs per device: row0 (1,) first global row of the shard;
     indices/w/m_visit/w_rev/m_rev: (n/ndev, k) shards; emb_scale and y
     replicated."""
@@ -291,11 +291,10 @@ def make_sharded_dense_segment(mesh: Mesh, b: float, n_sub: int,
     attraction (closure floor + bernoulli edge masks) and the per-kick
     rolled identity-pool repulsion with sequential kicks — runs per row
     shard under ``lax.scan`` inside ONE program; each half-sweep the
-    updated row blocks ride ICI with one ``all_gather`` (the embedding
+    updated row blocks travel in one ``all_gather`` (the embedding
     is replicated, (dim, n) floats: tiny next to the sweep compute).
     Everything is laid out TRANSPOSED (feature-minor, n last) exactly
-    like the single-chip production path: full lanes on the (8, 128)
-    tiling.  Each kick's negative pool is a CONTIGUOUS window of the
+    like the single-chip production path.  Each kick's negative pool is a CONTIGUOUS window of the
     replicated embedding (positions [r0 + s_t, r0 + m + s_t) mod n), so
     repulsion stays gather-free on every device.
 
@@ -452,8 +451,8 @@ def make_sharded_dense_segment(mesh: Mesh, b: float, n_sub: int,
 
             def stale_block(yT, blk0, kks, s_count):
                 # inner steps under lax.scan: the traced body is ONE
-                # sweep (unrolling made remote compiles ~S x slower,
-                # see optim/dense.py::_stale_block)
+                # sweep (unrolling makes compiles ~S x slower, see
+                # optim/dense.py::_stale_block)
                 yj_full = yT[:, idxT_full]
                 yjg = [jax.lax.slice_in_dim(yj_full, c * kg,
                                             (c + 1) * kg, axis=1)

@@ -52,12 +52,11 @@ def _pad_rows(a, rows, fill=0):
 
 def sharded_knn_graph_brute(x, k: int, mesh: Mesh, distance: str = "DistL2",
                             block_rows: int = 1024,
-                            dtype: str = "float32",
-                            topk_recall: float = 0.0):
+                            dtype: str = "float32"):
     """Row-sharded exact kNN graph: every device computes the panels of
     its query rows against the replicated corpus.  The per-block body
-    IS knn/brute.py::_block_topk (self mask, top-(k+extra), optional
-    ApproxTopK, exact f32 L2 rerank), so the result equals the
+    IS knn/brute.py::_block_topk (self mask, top-(k+extra), exact f32
+    L2 rerank), so the result equals the
     single-chip graph by construction."""
     from ..knn.brute import _block_topk, _RERANK_EXTRA
     from ..knn.distances import get_panel_fn, corpus_sqnorm
@@ -89,8 +88,7 @@ def sharded_knn_graph_brute(x, k: int, mesh: Mesh, distance: str = "DistL2",
         def one(args):
             q, rid = args
             return _block_topk(q, corpus[:n], x_sq, k, kk, panel_fn,
-                               pdtype, rerank, topk_recall,
-                               self_ids=rid)
+                               pdtype, rerank, self_ids=rid)
 
         idx, dd = jax.lax.map(one, (qb, ids))
         return idx.reshape(rows, -1), dd.reshape(rows, -1)
@@ -110,7 +108,6 @@ def sharded_knn_graph_ivf(x, k: int, mesh: Mesh, distance: str = "DistL2",
                           nlist: int = 0, nprobe: int = 32,
                           dtype: str = "float32", kmeans_iter: int = 10,
                           seed: int = 0, sample_size: int = 500_000,
-                          topk_recall: float = 0.0,
                           quantizer: str = "kmeans",
                           layout: str = "sorted"):
     """IVF local join with the virtual query rows sharded over the
@@ -140,7 +137,7 @@ def sharded_knn_graph_ivf(x, k: int, mesh: Mesh, distance: str = "DistL2",
     if layout == "sorted":
         def local(xp, qt, qp, st, ct, cn):
             return _ivf_join_sorted(xp, qt, qp, st, ct, cn, k, qcap,
-                                    cap, n, dtype, distance, topk_recall)
+                                    cap, n, dtype, distance)
 
         fn = jax.jit(shard_map(
             local, mesh=mesh,
@@ -153,7 +150,7 @@ def sharded_knn_graph_ivf(x, k: int, mesh: Mesh, distance: str = "DistL2",
 
         return _knn_graph_ivf_sorted(
             x, cells, cell_nbrs, pad_cell, n, d, k, nlist, cap, qcap,
-            dtype, distance, topk_recall, join_call=join_call,
+            dtype, distance, join_call=join_call,
             slab_round=ndev)
     if layout != "gathered":
         raise ValueError(f"unknown IVF layout {layout!r}")
@@ -167,8 +164,7 @@ def sharded_knn_graph_ivf(x, k: int, mesh: Mesh, distance: str = "DistL2",
     x_pad = jnp.concatenate([x, jnp.zeros((1, d), x.dtype)], axis=0)
 
     def local(xp, vt, vp, ct, cn):
-        return _ivf_join(xp, vt, vp, ct, cn, k, dtype, distance,
-                         topk_recall)
+        return _ivf_join(xp, vt, vp, ct, cn, k, dtype, distance)
 
     fn = jax.jit(shard_map(
         local, mesh=mesh,
@@ -308,8 +304,7 @@ def sharded_build_kgraph(x, knbn: int, mesh: Mesh,
     if n <= params.brute_force_limit:
         idx, dist = sharded_knn_graph_brute(
             x, knbn, mesh, distance=distance,
-            block_rows=params.block_rows, dtype=params.dtype,
-            topk_recall=params.topk_recall)
+            block_rows=params.block_rows, dtype=params.dtype)
     else:
         kb = knbn
         if params.refine_rounds > 0 and params.build_k_factor > 1.0:
@@ -317,7 +312,6 @@ def sharded_build_kgraph(x, knbn: int, mesh: Mesh,
         idx, dist = sharded_knn_graph_ivf(
             x, kb, mesh, distance=distance, nlist=params.nlist,
             nprobe=params.nprobe, dtype=params.dtype,
-            topk_recall=params.topk_recall,
             quantizer=params.quantizer, layout=params.ivf_layout)
         if params.refine_rounds > 0:
             idx, dist = sharded_nndescent_refine(

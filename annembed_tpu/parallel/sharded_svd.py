@@ -9,7 +9,7 @@ SpMM inside the Halko-Tropp subspace iteration is sharded over the
 
   * the nnz entry arrays (rows/cols/vals) are sharded; each device
     scatter-adds its entries' contributions into a local (n, r) panel
-    and one ``psum`` over ICI merges them — SpMM = gather +
+    and one ``psum`` merges them — SpMM = gather +
     segment-sum + all-reduce.
   * the (n, r) iterate, the QR factorizations and the final small SVD
     are replicated (r ~ rank+oversample ~ 30-35 columns: the QR is

@@ -1,10 +1,10 @@
-"""Parameter dataclasses for the TPU-native annembed rebuild.
+"""Parameter dataclasses for the JAX annembed rebuild.
 
 Mirrors the reference parameter surface:
   - ``EmbedderParams``  (reference: src/embedparams.rs:77-184)
   - ``DiffusionParams`` (reference: src/diffmaps.rs:72-248)
   - ``KnnParams``       (replaces the HNSW construction knobs of
-    reference src/bin/embed.rs:52-92 with TPU-native kNN knobs)
+    reference src/bin/embed.rs:52-92 with accelerator-side kNN knobs)
 
 Defaults match the reference exactly where a parameter has a direct
 counterpart.
@@ -64,10 +64,10 @@ class EmbedderParams:
     #: Use hubness (in-degree) weights for negative-node sampling.
     hubness_weighting: bool = False
 
-    # --- TPU-specific knobs (no reference counterpart) ------------------
+    # --- accelerator-specific knobs (no reference counterpart) ----------
     #: Mini-batch size (number of sampled positive edges per fused update).
     #: The reference applies Hogwild updates one sample at a time
-    #: (src/embedder.rs:1167-1302); on TPU we apply them in synchronous
+    #: (src/embedder.rs:1167-1302); here we apply them in synchronous
     #: mini-batches under ``lax.scan``.  Smaller batches track the
     #: sequential dynamics more closely; larger batches run faster.
     batch_size: int = 16384
@@ -78,7 +78,7 @@ class EmbedderParams:
     #: bounding the per-node step and allowing much larger batches.
     collision_mode: str = "sum"
     #: "dense": closed-form multiplicity sweeps in the (n, k) layout
-    #: (TPU-native, ~10-50x faster); "sampling": per-sample batched
+    #: (no per-sample scatter); "sampling": per-sample batched
     #: updates exactly mirroring the reference's Hogwild step.
     optimizer: str = "dense"
     #: scatter-free attraction in the dense optimizer (each row moves
@@ -126,9 +126,8 @@ class EmbedderParams:
     #: pack the (2, n) coordinate table into one complex64 lane for the
     #: neighbour gather (d=2, transposed path only; BIT-exact — c64 is
     #: exactly two f32s).  Halves the gathered element count; whether
-    #: that halves the gather wall depends on whether the chip's gather
-    #: is per-element- or per-slice-bound (microbench `gather_packing`
-    #: in tools/microbench_tpu.py decides; off until measured).
+    #: that halves the gather wall depends on whether the device's
+    #: gather is per-element- or per-slice-bound (off until measured).
     dense_packed_gather: bool = False
     #: reject negatives that are neighbours of the kicked node
     #: (reference embedder.rs:1246-1252).  The (n_neg, k, n) membership
@@ -142,18 +141,17 @@ class EmbedderParams:
     #: (n_neg, d, n) program against the post-attraction snapshot
     #: (summed) instead of the reference's sequential per-kick chain
     #: (embedder.rs:1244-1299, each kick reading the running yi).
-    #: At kernel-count-bound sizes (70k bench point: ~1 ms/sweep vs
-    #: ~40 us of modeled HBM traffic) the sequential chain of n_neg
-    #: dependent fusions IS the optimize wall; the stacked form is a
+    #: At kernel-count-bound sizes (the 70k bench point) the
+    #: sequential chain of n_neg dependent fusions can be the optimize
+    #: wall; the stacked form is a
     #: granularity change only — same partners, same per-kick caps
     #: (coeff <= 2, pole >= 1/16), same rejection masks.  Off = exact
     #: reference sequencing.
     dense_parallel_kicks: bool = False
     #: reuse one neighbour-coordinate gather for this many consecutive
     #: sweeps of the same column group (transposed path, n_blocks=1).
-    #: The (d, kg, n) gather is per-element-bound at ~305M elem/s on
-    #: the chip and is 65% of the 11M sweep (PERF.md round-5 sweep
-    #: decomposition); reuse=S amortizes it S-fold while the self
+    #: The (d, kg, n) gather is the largest op of the large-n sweep;
+    #: reuse=S amortizes it S-fold while the self
     #: position, repulsion pool, RNG stream and step schedule stay
     #: exactly fresh.  Neighbour positions are then <= S-1 sweeps
     #: stale — within the reference's Hogwild staleness envelope
@@ -216,7 +214,7 @@ class DiffusionParams:
     gnbn: Optional[int] = None
     #: Hierarchical layer (None/0 = embed the full graph).
     h_layer: Optional[int] = None
-    #: Subspace iterations of the randomized spectral solve — TPU knob;
+    #: Subspace iterations of the randomized spectral solve — a knob;
     #: default = the reference's 5 (graphlaplace.rs:115).  The init only
     #: seeds the CE optimizer, so fewer iterations can be quality-neutral
     #: (A/B per workload before lowering).
@@ -273,11 +271,11 @@ class DiffusionParams:
 
 @dataclasses.dataclass
 class KnnParams:
-    """TPU-native kNN graph construction knobs.
+    """kNN graph construction knobs.
 
     Replaces the HNSW parameters of the reference CLI
     (src/bin/embed.rs:52-92: max_nb_conn, ef_construction, knbn,
-    scale_modification).  On TPU the graph is built with tiled
+    scale_modification).  Here the graph is built with tiled
     distance-matmul panels + top-k, optionally pruned with an IVF
     (k-means) coarse quantizer for very large n.
     """
@@ -306,11 +304,6 @@ class KnnParams:
     #: propagate further per NN-descent round (recall@6 at 2M:
     #: 0.92 -> >=0.95 at comparable build time; see PERF.md).
     build_k_factor: float = 2.0
-    #: > 0 selects top-k candidates with the TPU ApproxTopK reduction
-    #: at this per-row recall target instead of the (slow, sort-based)
-    #: exact top-k; exact rerank / NN-descent refinement recover the
-    #: small loss.  0 = exact.
-    topk_recall: float = 0.0
     #: NN-descent candidate sampling fraction (Dong's rho-sampling):
     #: each round joins over an independent per-node random subset of
     #: rho*(k+rc) of the symmetrized neighbourhood, cutting the

@@ -126,8 +126,7 @@ def _dmap_laplacian_impl(indices, dists, gnbn: int, epsil, beta, alfa,
     """Single fused XLA program building the alfa-weighted Laplacian
     COO from the kNN graph: local scales -> kernel (-> density pass if
     beta < 0) -> symmetrize -> alfa normalization -> D^{-1/2} scaling.
-    Keeping this one jit matters on remote-compile backends where every
-    un-jitted op dispatch pays a round trip."""
+    One jit keeps the dispatch count at one."""
     n = indices.shape[0]
     rho, mean = _local_scales(dists, gnbn)
     epsil_sqrt = jnp.sqrt(epsil)
@@ -177,11 +176,8 @@ class DiffusionMaps:
             g.indices, g.dists, gnbn, jnp.float32(self.params.epsil),
             jnp.float32(beta), jnp.float32(self.params.alfa),
             beta_is_neg=beta < 0.0)
-        # kept as a DEVICE scalar: a float() here is a device->host
-        # readback that (on remote-dispatch runtimes) permanently
-        # degrades every subsequent program dispatch in the process
-        # (measured 500x on the dense optimizer).  The pipeline rule is
-        # one host sync point at the very end; convert lazily there.
+        # kept as a DEVICE scalar: the pipeline rule is one host sync
+        # point at the very end; convert lazily there.
         self.mean_scale = mean
         self.normed_scales = rho / mean
         self.q_density = q

@@ -2,15 +2,16 @@
 
 The reference instruments every phase with cpu_time::ProcessTime +
 SystemTime pairs (embedder.rs:871-884, hubness.rs:42-73) and
-memory-stats probes.  TPU equivalent: wall timers around
-block_until_ready boundaries plus optional ``jax.profiler`` traces
-(SURVEY.md §5).
+memory-stats probes.  Here: wall timers around block_until_ready
+boundaries plus optional ``jax.profiler`` traces (SURVEY.md §5), and
+the device record every measurement carries.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import subprocess
 import time
 from typing import Dict, Optional
 
@@ -66,3 +67,26 @@ def device_trace(logdir: Optional[str]):
     finally:
         jax.profiler.stop_trace()
         logger.info("device trace written to %s", logdir)
+
+
+def require_gpu() -> dict:
+    """The device a measurement runs on, as JAX reports it; raises
+    ``RuntimeError`` unless it is a GPU (a measurement never falls back
+    to the CPU)."""
+    import jax
+    devs = jax.devices()
+    if devs[0].platform != "gpu":
+        raise RuntimeError(f"no GPU: JAX found {devs[0].platform!r} "
+                           "devices only")
+    return {"platform": devs[0].platform, "kind": devs[0].device_kind,
+            "count": len(devs)}
+
+
+def card_name_and_power_limit() -> str:
+    """``name, power.limit`` of each card as nvidia-smi reports them
+    (read by a child process that does not touch JAX)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip()

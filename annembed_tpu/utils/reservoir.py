@@ -1,7 +1,7 @@
 """Reservoir sampling (Algorithm L).
 
 Rebuilds reference src/tools/reservoir.rs:12 ``unweighted_reservoir``.
-On TPU, sampling without replacement from an in-memory range is simply
+On an accelerator, sampling without replacement from an in-memory range is simply
 ``jax.random.choice``; this host-side generator version is kept for
 streaming iterables (API parity with the reference, which uses it for
 the Facco 2NN node sample, kgraph.rs:276).

@@ -10,7 +10,7 @@ correlation -> 20k-sample label-pair contingency tables of point and
 CdC distances (mnistcdc.rs:165-271), dumped lower-triangular
 (``dump_lows``, mnistcdc.rs:274-283).
 
-TPU flow: brute/IVF kNN graph, batched CdC via the sparse kernel
+This flow: brute/IVF kNN graph, batched CdC via the sparse kernel
 entries, and the batched Bures bound (psd_dist_pairs) that never
 materializes the (784, 784) covariances.  Falls back to synthetic
 10-class labeled data when the IDX files are absent.

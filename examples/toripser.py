@@ -8,7 +8,7 @@ ToRipserer::extract_projection_to_ripserer(knbn=20, layer=1,
 "fashionlocal.bson").  The outputs feed Julia/toripserer.jl
 (Ripserer.jl persistence homology).
 
-TPU flow: the same two dumps from annembed_tpu.io.ripser (sparse
+This flow: the same two dumps from annembed_tpu.io.ripser (sparse
 triplets of the projected small graph + lower-triangular BSON "limat"
 of the 1000-point neighbourhood of the first image); synthetic
 fallback when IDX files are absent.

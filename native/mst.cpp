@@ -2,7 +2,7 @@
 //
 // The MST union loop and the dendrogram build are inherently sequential
 // (each union depends on all previous ones), so they live here on the
-// C++ side — the TPU-native analogue of the reference keeping its
+// C++ side — the analogue of the reference keeping its
 // hdbscan/kruskal (kruskal.rs) on the CPU — while all graph-side array
 // work stays on device.  C ABI, consumed via ctypes with a
 // numpy/Python fallback in estimators/hdbscan.py.

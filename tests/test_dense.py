@@ -233,7 +233,7 @@ def test_dense_masked_quality_holds(rng):
 
 
 def test_hubness_importance_weights_match_weighted_draws(rng):
-    """W-pin for the hubness-negative approximation (VERDICT r2 weak #7).
+    """W-pin for the hubness-negative approximation.
 
     The reference draws negatives from an alias table with probability
     proportional to w_i = clip(in_degree, 1, n) (embedder.rs:810-837);

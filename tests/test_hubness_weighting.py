@@ -5,7 +5,7 @@ The reference draws negatives from a hubness-weighted alias table
 pool negatives and multiplies each kick by the mean-normalized,
 [0.25, 4]-clamped hubness weight of the negative
 (optim/dense.py::prepare_dense_inputs) — same expected update when no
-clamp binds, and a ~25x cheaper sweep (PERF.md).  VERDICT r2 asked for
+clamp binds, and a cheaper sweep.  A review asked for
 a test that bounds the difference on a hub-heavy fixture: these tests
 pin (1) exact expectation equality when weights are within the clamp
 range, and (2) a bounded, direction-preserving deviation under extreme

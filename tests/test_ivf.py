@@ -310,3 +310,19 @@ def test_sorted_layout_multi_slab_parity(rng, monkeypatch):
     i2, d2 = knn_graph_ivf(x, k=7, nlist=16, nprobe=5, layout="sorted")
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
     np.testing.assert_array_equal(np.asarray(d1), np.asarray(d2))
+
+
+@pytest.mark.parametrize("n", [2048, 3001])
+def test_cluster_sums_match_numpy(rng, n):
+    """The k-means update's fixed-order sums equal a plain numpy
+    accumulation, also when n is not a multiple of the block."""
+    from annembed_tpu.knn.kmeans import cluster_sums
+    x = rng.normal(size=(n, 5)).astype(np.float32)
+    cells = rng.integers(0, 37, n).astype(np.int32)
+    cells[:3] = 36                       # a busy last cluster
+    sums, counts = cluster_sums(x, cells, 40, block_rows=1024)
+    ref_s = np.zeros((40, 5))
+    np.add.at(ref_s, cells, x.astype(np.float64))
+    np.testing.assert_allclose(np.asarray(sums), ref_s, atol=1e-4)
+    np.testing.assert_array_equal(np.asarray(counts),
+                                  np.bincount(cells, minlength=40))

@@ -3,7 +3,7 @@ dispatch, self-exclusion, duplicate-point robustness.
 
 Mirrors the reference test strategy for graph extraction
 (src/fromhnsw/kgraph.rs:771-903 uses synthetic uniform data); here we
-can assert exactness since the TPU graph builder is brute force.
+can assert exactness since the graph builder is brute force.
 """
 
 import numpy as np
@@ -114,7 +114,8 @@ def test_build_kgraph_probability_metric(rng):
 
 def test_bfloat16_panel_with_rerank(rng):
     """bf16 matmul panels + exact f32 rerank: the graph should agree
-    with full-f32 on nearly every edge (MXU-friendly fast path)."""
+    with full-f32 on nearly every edge (the reduced-precision fast
+    path)."""
     from annembed_tpu.knn.api import recall_at_k
     x = rng.normal(size=(500, 32)).astype(np.float32)
     i32, d32 = knn_graph_brute(x, k=8, dtype="float32")
@@ -188,15 +189,30 @@ def test_recall_at_k_duplicates_count_once():
     assert abs(recall_at_k(approx, exact) - 4 / 6) < 1e-9
 
 
-def test_search_topk_recall_parity_on_cpu(rng):
-    """knn_search_brute honors topk_recall end-to-end; on CPU the
-    ApproxTopK lowering is exact, so results match the exact path —
-    including across the chunked merge."""
+def test_search_exact_topk_matches_numpy_across_chunks(rng):
+    """The exact top-k candidate selection of knn_search_brute (panel
+    top-(k+extra) + exact rerank) equals a numpy oracle, unchunked and
+    across the chunked running merge."""
     corpus = rng.normal(size=(300, 6)).astype(np.float32)
     queries = rng.normal(size=(25, 6)).astype(np.float32)
-    i1, d1 = knn_search_brute(queries, corpus, k=7)
-    i2, d2 = knn_search_brute(queries, corpus, k=7, topk_recall=0.95)
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-    i3, _ = knn_search_brute(queries, corpus, k=7, topk_recall=0.95,
-                             corpus_chunk=120)
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i3))
+    d2 = ((queries[:, None, :] - corpus[None, :, :]) ** 2).sum(-1)
+    ref = np.argsort(d2, axis=1, kind="stable")[:, :7]
+    ref_d = np.sqrt(np.take_along_axis(d2, ref, axis=1))
+    for chunk in (2_000_000, 120):
+        i1, d1 = knn_search_brute(queries, corpus, k=7, corpus_chunk=chunk)
+        np.testing.assert_array_equal(np.asarray(i1), ref)
+        np.testing.assert_allclose(np.asarray(d1), ref_d, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_knn_graph_recall_on_gpu(gpu_device, rng):
+    """At d = 784 the panel runs at DEFAULT precision (TF32 on the
+    card); the exact f32 rerank keeps the graph's recall against exact
+    search at Precision.HIGHEST above 0.99."""
+    import jax
+    from annembed_tpu.knn.api import recall_at_k
+    x = rng.normal(size=(4000, 784)).astype(np.float32)
+    idx, _ = knn_graph_brute(x, 6)
+    with jax.default_matmul_precision("highest"):
+        ref, _ = knn_graph_brute(x, 6)
+    assert recall_at_k(idx, ref) >= 0.99

@@ -220,22 +220,24 @@ def test_sharded_dense_optimize_separates(rng, mesh):
     assert y2.shape == (250, 2) and np.isfinite(y2).all()
 
 
-def test_sharded_brute_topk_recall_parity(rng, mesh):
-    """KnnParams.topk_recall reaches the sharded brute path (it was
-    silently dropped once): sharded == single-chip with the knob on.
-    On CPU approx_max_k lowers to exact top-k, so parity is exact."""
+def test_sharded_brute_bf16_candidates_parity(rng, mesh):
+    """bf16 panels select candidates by exact top-k, the f32 rerank
+    orders them: sharded == single-chip on that path too, and both
+    agree with the exact f32 graph."""
     import jax.numpy as jnp
+    from annembed_tpu.knn.api import recall_at_k
     from annembed_tpu.knn.brute import knn_graph_brute
     from annembed_tpu.parallel.sharded_knn import sharded_knn_graph_brute
     x = rng.normal(size=(300, 10)).astype(np.float32)
-    idx_1, dist_1 = knn_graph_brute(x, 6, topk_recall=0.95)
+    idx_1, dist_1 = knn_graph_brute(x, 6, dtype="bfloat16")
     idx_s, dist_s = sharded_knn_graph_brute(jnp.asarray(x), 6, mesh,
                                             block_rows=64,
-                                            topk_recall=0.95)
+                                            dtype="bfloat16")
     np.testing.assert_array_equal(np.asarray(idx_1), np.asarray(idx_s))
     np.testing.assert_allclose(np.asarray(dist_1), np.asarray(dist_s),
                                rtol=1e-5)
-
+    idx_ex, _ = knn_graph_brute(x, 6)
+    assert recall_at_k(idx_s, idx_ex) > 0.97
 
 def test_sharded_ivf_grid_parity(rng, mesh):
     """Grid-quantizer IVF: sharded == single-chip (same strip

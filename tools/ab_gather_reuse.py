@@ -6,8 +6,8 @@ Same structured-manifold fixture as bench.py's conservation row
 conservation differences are the optimizer's, not the data's), same
 graph + init + schedule for every arm; only dense_gather_reuse varies.
 Emits one JSON line per arm: mean_nb_matched / no_match / median_ratio
-+ optimize wall.  CPU-runnable (tools/run_cpu.py) at --n 20000; the
-decision row for the 11M recipe is the chip wall in
++ optimize wall.  CPU-runnable (JAX_PLATFORMS=cpu) at --n 20000; the
+decision row for the 11M recipe is the GPU wall in
 tools/sweep_ablation.py — THIS tool decides quality only.
 """
 

@@ -38,7 +38,7 @@ from annembed_tpu.estimators.quality import quality_estimate
 n = int(sys.argv[1]) if len(sys.argv) > 1 else 70_000
 x = jnp.asarray(synthetic_mnist(n=n)).astype(jnp.float32)
 idx, dist = knn_graph_brute(x, KNBN, block_rows=2048,
-                            dtype="bfloat16", topk_recall=0.99)
+                            dtype="bfloat16")
 g = KGraph(indices=idx, dists=dist)
 npar = to_proba_edges(g)
 dm = DiffusionMaps(params=DiffusionParams(

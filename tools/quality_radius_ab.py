@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Chip A/B: certified grid radius search vs exact brute (VERDICT r4
-item 6 — "11M quality <= 10 min at identical numbers").
+"""A/B: certified grid radius search vs exact brute (aim: the 11M
+quality phase at identical numbers in a fraction of the brute wall).
 
 Shapes mirror the 11M quality phase: a 2-d embedded-like cloud
 (anisotropic Gaussian mixture, the shape a real embedding takes),

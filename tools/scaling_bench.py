@@ -1,9 +1,8 @@
 #!/usr/bin/env python
-"""Weak-scaling microbench on the virtual CPU mesh (VERDICT r4 item 7).
+"""Weak-scaling microbench on the virtual CPU mesh.
 
-No multi-chip hardware is reachable from this container, so the only
-scaling measurement possible is the virtual mesh
-(``--xla_force_host_platform_device_count``).  Virtual devices share
+The virtual mesh (``--xla_force_host_platform_device_count``) needs no
+accelerator.  Virtual devices share
 the host's cores — ABSOLUTE throughput is meaningless — but WEAK
 scaling (fixed rows per device) still measures exactly what multi-chip
 would stress: partitioning overhead, collective count/volume per step,
@@ -17,7 +16,7 @@ Phases measured (the two dominant 11M phases):
 
 Each device count runs in a fresh subprocess (the device count must be
 fixed before jax initializes).  Emits a table + one JSON line per
-count; artifact: artifacts/scaling_r5.json.
+count.
 """
 
 from __future__ import annotations
